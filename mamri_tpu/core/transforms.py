@@ -2,8 +2,8 @@
 
 The reference drives all of its geometry through vtkMatrix4x4/vtkTransform
 (e.g. Mamri/Mamri.py:1486-1505, :1760-1769). Here the same math is expressed as
-pure functions over (..., 4, 4) jnp arrays so it is jit/vmap/grad-compatible and
-maps onto the TPU's vector/matrix units.
+pure functions over (..., 4, 4) jnp arrays so it is jit/vmap/grad-compatible
+and runs on the accelerator inside the fused programs.
 
 Axis conventions (anatomical axes of the scanner frame; parity with the
 reference's `_get_rotation_transform`, Mamri/Mamri.py:1760-1769):
@@ -17,11 +17,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# Geometry matmuls MUST run at full float32 precision: the platform's default
-# matmul precision computes in bfloat16 (8-bit mantissa), which rounds
-# millimeter-scale coordinates (e.g. 355 -> 356) and silently breaks sub-mm
-# parity. Every homogeneous-transform product in this package goes through
-# `matmul` / `apply` below with Precision.HIGHEST.
+# Geometry matmuls MUST run at full float32 precision: on an NVIDIA H100 an
+# f32 matmul may run in TF32 (10-bit mantissa, ~3 decimal digits), which
+# rounds millimeter-scale coordinates by tenths of a millimeter and silently
+# breaks sub-mm parity. Every homogeneous-transform product that runs on the
+# device goes through `matmul` / `apply` below with Precision.HIGHEST.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 

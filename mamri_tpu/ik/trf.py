@@ -12,7 +12,8 @@ closures ``ik/residuals.py`` builds — the Jacobian handed to SciPy is the
 same ``jax.jacfwd`` the on-device LM differentiates — so any disagreement
 between this oracle and ``solve_full_chain_ik`` is attributable to the
 solver, not the objective. Host-only (SciPy's TRF is compiled CPU code);
-pin JAX to CPU before calling from a TPU session (tools/ik_oracle.py does).
+pin JAX to CPU before calling from an accelerator session (tools/ik_oracle.py
+does).
 """
 
 from __future__ import annotations

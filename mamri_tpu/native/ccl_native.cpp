@@ -5,7 +5,7 @@
 //
 // Role: the reference delegates its host-side heavy lifting to native C++
 // libraries (SimpleITK/VTK and Slicer's DICOM stack). mamri_tpu's device
-// path is JAX/Pallas; this library is the native equivalent of the
+// path is JAX/XLA; this library is the native equivalent of the
 // host-side pieces — the mesh data-loader feeding collision geometry, an
 // independent, allocation-tight CCL used as a CPU golden/fast path
 // (scipy-free deployments), and the byte-level RLE codec on the scanner

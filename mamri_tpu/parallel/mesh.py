@@ -1,18 +1,17 @@
 """Device-mesh scaling of the pose-estimation pipeline.
 
 The reference is strictly single-process/single-volume (SURVEY.md §2.3: no
-distributed layer exists). The TPU-native framework scales along the two axes
-the workload actually has:
+distributed layer exists). This package scales along the two axes the
+workload actually has:
 
-  dp — data parallel over volumes: BASELINE configs 3/5 demand batched
-       throughput; volumes are independent, so the fused pipeline vmaps and
-       the batch axis shards across ICI-connected chips.
-  sp — spatial parallel over the volume's x extent: for single-scan latency,
-       the segmentation stage's shifts/scans on an x-sharded volume lower to
-       XLA collective-permutes (halo exchanges) over ICI automatically.
+  dp — data parallel over volumes: volumes are independent, so each device
+       runs the vmapped fused pipeline on its slice of the batch.
+  sp — spatial parallel over the volume's x extent, for single-scan
+       latency: the segmentation stage exchanges closing halos, CCL
+       x-scan summaries and stats explicitly (parallel/shard_seg.py).
 
-Everything goes through `jax.jit` + `NamedSharding` — XLA inserts the
-collectives; there is no hand-written communication.
+Both run under one `shard_map` (manual SPMD) program. The mesh follows the
+algorithm alone: the cards of one host reach each other all to all.
 """
 
 from __future__ import annotations
@@ -77,7 +76,7 @@ _OUT_KEYS = (
     "success", "angles", "steps", "rmse", "base_tf", "base_ok", "base_source",
     "markers_found", "num_blobs", "body_found", "num_components",
     "seg_converged", "roots_complete", "blobs_complete",
-    "seg_count_ok", "seg_cand_ok", "seg_runs_ok", "seg_compact_ok",
+    "seg_count_ok",
 )
 
 
@@ -103,12 +102,12 @@ def sharded_batched_pipeline(
     dp, i.e. microbatch/dp volumes resident per device at a time). Must be a
     multiple of the dp extent and divide the batch size.
 
-    dp-only: plain jit + NamedSharding (XLA partitions the batch axis).
-    dp x sp: manual SPMD via shard_map — the segmentation stage runs
-    `segment_volume_sharded` (parallel/shard_seg.py): the full single-chip
-    Pallas kernel pipeline shard-locally, with explicit ppermute data halos
-    for the fused closing/init, an all_gather'd boundary-run prefix for the
-    cross-shard x half-sweeps, and psum'd run-stats/certificates.
+    The whole pipeline runs under `shard_map` over (dp, sp). With sp, the
+    segmentation stage is `segment_volume_sharded` (parallel/shard_seg.py):
+    explicit ppermute mask halos for the closing, an all_gather'd
+    boundary-run prefix for the cross-shard x scans, and psum'd
+    stats/certificates. Without sp, each device runs the single-device
+    pipeline on its slice of the batch.
     """
     nj = engine.model.num_joints
     dp = mesh.shape[dp_axis]
@@ -117,57 +116,12 @@ def sharded_batched_pipeline(
             f"microbatch {microbatch} must be a positive multiple of the dp extent {dp}"
         )
 
-    if sp_axis is None:
-        pipeline = engine.pipeline_fn(seg_params)
+    seg_fn = None
+    if sp_axis is not None:
+        from mamri_tpu.parallel.shard_seg import segment_volume_sharded
 
-        def one(data, spacing, origin, apply_correction):
-            out = pipeline(
-                data,
-                spacing,
-                origin,
-                jnp.eye(4, dtype=jnp.float32),
-                jnp.asarray(False),
-                jnp.asarray(False),
-                apply_correction,
-                jnp.zeros(nj, dtype=jnp.float32),
-            )
-            out.pop("body_mask")
-            return out
-
-        vone = jax.vmap(one, in_axes=(0, None, None, None))
-        if microbatch is None:
-            batched = vone
-        else:
-            def batched(data, spacing, origin, apply_correction):
-                b = data.shape[0]
-                if microbatch >= b:
-                    return vone(data, spacing, origin, apply_correction)  # no chunking
-                if b % microbatch:
-                    raise ValueError(f"microbatch {microbatch} must divide batch {b}")
-                chunks = data.reshape((b // microbatch, microbatch) + data.shape[1:])
-                # pin the volume axis (not the chunk axis) to dp so lax.map
-                # serializes chunks and each chunk spreads across devices
-                chunks = jax.lax.with_sharding_constraint(
-                    chunks, NamedSharding(mesh, P(None, dp_axis))
-                )
-                out = jax.lax.map(
-                    lambda d: vone(d, spacing, origin, apply_correction), chunks
-                )
-                return jax.tree.map(lambda x: x.reshape((b,) + x.shape[2:]), out)
-
-        data_sh = batch_sharding(mesh, dp_axis)
-        repl = NamedSharding(mesh, P())
-        out_sh = NamedSharding(mesh, P(dp_axis))
-        return jax.jit(
-            batched,
-            in_shardings=(data_sh, repl, repl, repl),
-            out_shardings={k: out_sh for k in _OUT_KEYS},
-        )
-
-    from mamri_tpu.parallel.shard_seg import segment_volume_sharded
-
-    def seg_fn(data, spacing, origin, params):
-        return segment_volume_sharded(data, spacing, origin, params, axis_name=sp_axis)
+        def seg_fn(data, spacing, origin, params):
+            return segment_volume_sharded(data, spacing, origin, params, axis_name=sp_axis)
 
     pipeline = engine.pipeline_fn(seg_params, seg_fn=seg_fn)
     mb_local = None if microbatch is None else microbatch // dp
@@ -260,7 +214,8 @@ def run_sharded_batched(
         return cache[key]
 
     out = get_fn(params, microbatch)(
-        jnp.asarray(data_batch),
+        # straight onto the mesh: each device receives only its own slice
+        jax.device_put(data_batch, batch_sharding(mesh, dp_axis, sp_axis)),
         jnp.asarray(spacing),
         jnp.asarray(origin),
         jnp.asarray(apply_correction),
@@ -276,6 +231,7 @@ def run_sharded_batched(
             bool(out["seg_converged"][fail].all()),
             bool(out["roots_complete"][fail].all()),
             bool(out["blobs_complete"][fail].all()),
+            count_ok=bool(out["seg_count_ok"][fail].all()),
         )
         if stronger is None:
             logger.warning(
@@ -303,7 +259,7 @@ def run_sharded_batched(
             stronger.max_roots, stronger.max_blobs, stronger.exhaustive_roots,
         )
         sub = get_fn(stronger, mb)(
-            jnp.asarray(data_np[sel]),
+            jax.device_put(data_np[sel], batch_sharding(mesh, dp_axis, sp_axis)),
             jnp.asarray(spacing),
             jnp.asarray(origin),
             jnp.asarray(apply_correction),

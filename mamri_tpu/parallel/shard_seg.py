@@ -1,45 +1,29 @@
-"""shard_map'd spatially-sharded segmentation (the sp axis' fast path).
+"""shard_map'd spatially-sharded segmentation (the sp mesh axis).
 
-The jit+NamedSharding sp path (parallel/mesh.py) must pin the slow jnp
-segmentation because XLA cannot auto-partition `pallas_call`. This module is
-the manual-SPMD alternative: the volume's x extent is sharded over the `sp`
-mesh axis, the SAME Pallas kernel pipeline that powers the single-chip path
-runs shard-locally, and every cross-shard interaction is an explicit
-collective:
+The volume's x extent is sharded over the `sp` mesh axis; the single-device
+segmentation runs shard-locally and every cross-shard interaction is an
+explicit collective:
 
-  * fused threshold + ball(2) closing + label init: a 4-plane x-halo of RAW
-    data is exchanged via `lax.ppermute`, then `fused_threshold_close_init`
-    runs on the extended shard (global edges receive below-threshold fill,
-    identical to `binary_close`'s constant-False padding). Labels come out
-    as GLOBAL (z, y, x)-raster indices: the kernel uses the global raster
-    multipliers and the shard adds its x offset.
-  * run-length distances (`compute_reset_distances`) are computed
-    shard-locally; the x pair deliberately treats the shard boundary as a
-    run break (that clamping is exactly what the local x sweep needs).
-  * CCL sweeps follow the single-chip half-sweep schedule ([yz, x, yz, ...]
-    when `params.passes` is set, classic full sweeps otherwise): y/z
-    half-sweeps are the VMEM-resident `ccl_half_sweep_yz` kernel, and the x
-    half-sweep is `ccl_half_sweep_x` (local run portions) plus an exact
-    cross-shard fix — one `all_gather` of each shard's per-line boundary-run
-    summaries, a static prefix-combine over the shard ring, and a masked
-    apply to the runs touching the shard edges. The combine is associative,
-    so the result is bit-identical to the unsharded x half-sweep.
-  * the local-consistency convergence certificate (`ccl_check_consistency`)
-    runs shard-locally; shard-boundary label pairs are checked with one
-    ppermute'd edge plane; `psum` makes the certificate GLOBAL — so ANY
-    half-sweep schedule is legitimized exactly as on one chip, and the
-    engine's passes-doubling escalation strengthens the sharded path too.
-  * component stats: `extract_z_runs` (z-runs never cross x shards) with the
-    shard's global `x_off` for root detection, an `all_gather` top-k root
-    merge, and `run_stats_matmul` over the ~nz/run_k-smaller run tables with
-    a closed-form x-offset correction (sum_i += x_off * count), `psum`'d.
-
-A jnp fallback (`use_pallas=False`, or a local x extent that is not a
-multiple of the 8-row tile) keeps the round-2 associative-scan path, now
-honoring the same `passes` schedule and consistency certificate.
+  * threshold + ball closing: a 2*radius-plane x-halo of the MASK is
+    exchanged via `lax.ppermute` (global edges receive background,
+    identical to `binary_close`'s constant-False padding);
+  * CCL sweeps follow the single-device half-sweep schedule ([yz, x, yz,
+    ...] when `params.passes` is set, classic full sweeps otherwise). The
+    y/z line passes are shard-local. The x pass runs local directional scans,
+    one `all_gather` of each shard's per-line fold summaries, a static
+    prefix-combine over the shard ring, and a local apply. The combine is
+    associative, so the result is bit-identical to the unsharded x pass;
+  * the local-consistency convergence certificate runs shard-locally;
+    shard-boundary label pairs are checked with one ppermute'd edge plane,
+    and `psum` makes the certificate GLOBAL — so any half-sweep schedule is
+    legitimized exactly as on one device, and the engine's passes-doubling
+    escalation strengthens the sharded path too;
+  * component stats: local exact top-k roots merged by `all_gather`, then
+    the chunked one-hot contraction over the local shard with global i
+    coordinates, `psum`'d.
 
 Everything downstream of the (R, 4) stats is replicated arithmetic (the
-same `finalize_segmentation` tail as the single-chip path); the big arrays
+same `finalize_segmentation` tail as the single-device path); the big arrays
 (labels, body_mask) stay sharded.
 
 Replaces: reference's single-process SimpleITK pipeline
@@ -48,10 +32,6 @@ Replaces: reference's single-process SimpleITK pipeline
 
 from __future__ import annotations
 
-import functools
-from typing import Optional
-
-import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import PartitionSpec as P
@@ -60,16 +40,15 @@ from mamri_tpu.perception.segmentation import (
     _BIG,
     SegmentationParams,
     SegmentationResult,
+    _labels_consistent,
     _segmented_min_scan,
+    _validate_thresholds,
     binary_close,
+    bidirectional_min_scan,
+    component_stats_reference,
     finalize_segmentation,
+    segment_volume,
 )
-
-
-def _use_pallas_local(params: SegmentationParams) -> bool:
-    if params.use_pallas is not None:
-        return params.use_pallas
-    return jax.default_backend() not in ("cpu",)
 
 
 def _ring_perms(n_sp: int):
@@ -81,7 +60,7 @@ def _ring_perms(n_sp: int):
 # ----------------------------------------------------------------- closing
 def _closed_mask_sharded(data, thr_lo, thr_hi, radius: int, axis_name: str):
     """Threshold + ball closing on an x-sharded volume, exact via halo
-    exchange. `data` is the local (nxl, ny, nz) shard. (jnp fallback path.)"""
+    exchange. `data` is the local (nxl, ny, nz) shard."""
     mask = jnp.logical_and(data >= thr_lo, data <= thr_hi)
     if radius <= 0:
         return mask
@@ -103,29 +82,6 @@ def _closed_mask_sharded(data, thr_lo, thr_hi, radius: int, axis_name: str):
 
 
 # ----------------------------------------------------------------- scans
-def _local_scan_lines(lab, reset_i32, axis: int, use_pallas: bool, interpret: bool):
-    """Bidirectional shard-local segmented min-scan along a LOCAL axis (1 or 2),
-    through the Pallas line-scan kernel when enabled."""
-    if not use_pallas:
-        rb = reset_i32 != 0
-        fwd = _segmented_min_scan(lab, rb, axis, reverse=False)
-        bwd = _segmented_min_scan(lab, rb, axis, reverse=True)
-        return jnp.minimum(jnp.minimum(fwd, bwd), lab)
-    from mamri_tpu.perception.pallas_ops import segmented_min_scan_lines
-
-    nx, ny, nz = lab.shape
-    if axis == 2:
-        return segmented_min_scan_lines(
-            lab.reshape(nx * ny, nz), reset_i32.reshape(nx * ny, nz), interpret=interpret
-        ).reshape(nx, ny, nz)
-    if axis == 1:
-        lab_t = jnp.transpose(lab, (0, 2, 1)).reshape(nx * nz, ny)
-        reset_t = jnp.transpose(reset_i32, (0, 2, 1)).reshape(nx * nz, ny)
-        out = segmented_min_scan_lines(lab_t, reset_t, interpret=interpret)
-        return jnp.transpose(out.reshape(nx, nz, ny), (0, 2, 1))
-    raise ValueError("local axes are 1 (y) and 2 (z); axis 0 is sharded")
-
-
 def _prefix_combine(f_all, v_all, reverse: bool):
     """Static prefix-combine of per-shard (any-reset, boundary-run value)
     summaries over the shard ring; returns the per-shard INCOMING value
@@ -144,8 +100,7 @@ def _prefix_combine(f_all, v_all, reverse: bool):
 
 
 def _global_x_scan(lab, reset, axis_name: str, reverse: bool):
-    """Exact inclusive segmented min-scan along the SHARDED x axis (jnp
-    fallback path).
+    """Exact inclusive segmented min-scan along the SHARDED x axis.
 
     Local directional scan, then one all_gather of the (ny, nz) per-line fold
     summaries, a static prefix-combine over shard order, and a local apply:
@@ -181,19 +136,15 @@ def _boundary_bad(lab, fg, axis_name: str):
     return bad.astype(jnp.int32)
 
 
-# ------------------------------------------------------------ fallback sweeps
-def _ccl_sweeps_sharded(
-    lab0, reset, params: SegmentationParams, axis_name: str, use_pallas: bool, interpret: bool
-):
-    """jnp-fallback CCL sweeps on the x-sharded labels, honoring the same
-    half-sweep `passes` schedule as the single-chip path; `converged` is the
-    GLOBAL local-consistency certificate (valid for ANY schedule), so the
-    engine's passes-doubling escalation strengthens this path too."""
-    reset_i32 = reset.astype(jnp.int32)
+# ----------------------------------------------------------------- sweeps
+def _ccl_sweeps_sharded(lab0, reset, params: SegmentationParams, axis_name: str):
+    """CCL sweeps on the x-sharded labels, honoring the same half-sweep
+    `passes` schedule as the single-device path; `converged` is the GLOBAL
+    local-consistency certificate (valid for ANY schedule), so the engine's
+    passes-doubling escalation strengthens this path too."""
 
     def yz_half(lab):
-        lab = _local_scan_lines(lab, reset_i32, 1, use_pallas, interpret)
-        return _local_scan_lines(lab, reset_i32, 2, use_pallas, interpret)
+        return bidirectional_min_scan(bidirectional_min_scan(lab, reset, 1), reset, 2)
 
     def x_half(lab):
         fwd = _global_x_scan(lab, reset, axis_name, reverse=False)
@@ -212,200 +163,11 @@ def _ccl_sweeps_sharded(
         if passes % 2:
             lab = yz_half(lab)
 
-    converged = _consistency_sharded_jnp(lab, reset, axis_name)
-    return lab, converged
-
-
-def _consistency_sharded_jnp(lab, reset, axis_name: str):
-    """GLOBAL () bool fixed-point certificate for the fallback path: local
-    within-run adjacent equality on all three axes (axis-0 pairs within the
-    shard) + the ppermute'd shard-boundary pairs, psum'd."""
-    from mamri_tpu.perception.segmentation import _labels_consistent_jnp
-
-    fg = jnp.logical_not(reset)
-    bad = jnp.logical_not(_labels_consistent_jnp(lab, reset)).astype(jnp.int32)
-    bad = jnp.maximum(bad, _boundary_bad(lab, fg, axis_name))
-    return lax.psum(bad, axis_name) == 0
-
-
-# ------------------------------------------------------------ fast (kernel) path
-def _x_half_sweep_sharded(lab, dists, reset_any, left_run, right_run, axis_name, interpret):
-    """The x half of a CCL sweep on the sharded axis: the local dist-masked
-    ladder kernel (shard-local run portions; the local distances already
-    treat the shard edge as a break), then the exact cross-shard fix — one
-    all_gather of per-line boundary summaries, prefix-combine, masked apply.
-
-    After the local sweep the edge voxel of a boundary-touching run holds
-    the min over the run's entire local portion (the bidirectional ladder
-    covers it), which is exactly the directional scan's fold value at the
-    edge — so the standard segmented-scan decomposition applies unchanged.
-    """
-    from mamri_tpu.perception.pallas_ops import ccl_half_sweep_x
-
-    lab, _ = ccl_half_sweep_x(lab, dists, interpret=interpret)
-
-    f_all = lax.all_gather(reset_any, axis_name)  # (S, nyp, nzp)
-    vr_all = lax.all_gather(lab[-1], axis_name)
-    vl_all = lax.all_gather(lab[0], axis_name)
-    me = lax.axis_index(axis_name)
-    v_in_fwd = _prefix_combine(f_all, vr_all, reverse=False)[me]
-    v_in_bwd = _prefix_combine(f_all, vl_all, reverse=True)[me]
-    lab = jnp.where(left_run, jnp.minimum(lab, v_in_fwd[None]), lab)
-    lab = jnp.where(right_run, jnp.minimum(lab, v_in_bwd[None]), lab)
-    return lab
-
-
-def _segment_volume_sharded_fast(
-    data, spacing, origin, params: SegmentationParams, axis_name: str, interpret: bool
-) -> SegmentationResult:
-    """The single-chip kernel pipeline (fused init -> run-length distances ->
-    dist-masked half-sweeps -> d=1 certificate -> z-run stats on the MXU)
-    lifted onto the sp axis. See module docstring for the collective at each
-    stage. Requires nxl % 8 == 0 (x tile rows must not straddle shards)."""
-    from mamri_tpu.perception.pallas_ops import (
-        ccl_check_consistency_x,
-        ccl_half_sweep_yz,
-        compute_reset_distances,
-        extract_z_runs,
-        fused_threshold_close_init,
-        run_stats_matmul,
-    )
-
-    nxl, ny, nz = data.shape
-    n_sp = lax.axis_size(axis_name)
-    nx = n_sp * nxl
-    me = lax.axis_index(axis_name)
-    x_off = me * nxl
-
-    # --- fused threshold + closing + global-label init, with raw-data halo
-    h = 2 * params.closing_radius  # > 0: this path is gated on radius == 2
-    if nxl < h:
-        raise ValueError(
-            f"shard width {nxl} is thinner than the closing halo {h}: halo "
-            "exchange would hand a shard its neighbor's planes — use fewer "
-            "sp shards or a smaller closing radius"
-        )
-    fwd, bwd = _ring_perms(n_sp)
-    bg = jnp.float32(-jnp.inf)  # strictly out of band for any finite threshold
-    left = lax.ppermute(data[-h:], axis_name, perm=fwd)
-    right = lax.ppermute(data[:h], axis_name, perm=bwd)
-    left = jnp.where(me == 0, bg, left)  # global edges: background fill
-    right = jnp.where(me == n_sp - 1, bg, right)
-    ext = jnp.concatenate([left, data, right], axis=0)
-    mask_ext, lab_ext = fused_threshold_close_init(
-        ext, params.intensity_low, params.intensity_high,
-        interpret=interpret, label_dims=(nx, ny),
-    )
-    mask_i8 = mask_ext[h : h + nxl]
-    # kernel labels use ext-local x: shift to global (background stays _BIG)
-    lab0 = jnp.where(mask_i8 == 1, lab_ext[h : h + nxl] + (x_off - h), _BIG)
-
-    # --- tile padding (y/z only; x padding would break cross-shard runs)
-    pad_y, pad_z = (-ny) % 8, (-nz) % 128
-    cfg = ((0, 0), (0, pad_y), (0, pad_z))
-    labp = jnp.pad(lab0, cfg, constant_values=_BIG)
-    resetp = jnp.pad(1 - mask_i8, cfg, constant_values=jnp.int8(1))
-
-    dists = compute_reset_distances(resetp, interpret=interpret)
-    dfx, dbx = dists[0], dists[1]
-
-    # boundary-run masks + per-line reset summaries (static across sweeps)
-    nxlp = labp.shape[0]
-    ix = lax.broadcasted_iota(jnp.int32, labp.shape, 0)
-    left_run = dfx.astype(jnp.int32) == ix + 1  # no local reset at-or-before
-    right_run = dbx.astype(jnp.int32) == nxlp - ix  # no local reset at-or-after
-    reset_any = jnp.any(resetp != 0, axis=0)  # (nyp, nzp)
-
-    # --- half-sweep schedule (identical to the single-chip kernel path)
-    passes = params.passes if params.passes is not None else 2 * params.max_sweeps
-
-    def full_sweep(lab, _):
-        lab, _ = ccl_half_sweep_yz(lab, dists, interpret=interpret)
-        lab = _x_half_sweep_sharded(
-            lab, dists, reset_any, left_run, right_run, axis_name, interpret
-        )
-        return lab, None
-
-    labp, _ = lax.scan(full_sweep, labp, None, length=passes // 2)
-    if passes % 2:
-        # final yz half-sweep fuses its own y/z consistency check in-kernel
-        labp, bad_yz = ccl_half_sweep_yz(labp, dists, interpret=interpret, with_check=True)
-        bad = jnp.maximum(bad_yz, ccl_check_consistency_x(labp, dists, interpret=interpret))
-    else:
-        from mamri_tpu.perception.pallas_ops import ccl_check_consistency
-
-        bad = ccl_check_consistency(labp, dists, interpret=interpret)
-    # cross-shard boundary pairs (local dfx treats the edge as a run break,
-    # so the in-kernel x check skips exactly these)
-    bad = jnp.maximum(bad, _boundary_bad(labp, resetp == 0, axis_name))
-    converged = lax.psum(bad, axis_name) == 0
-
-    # --- z-run tables + fused roots (global x offset), stats on the MXU
-    run_lab, run_z0, run_len, cands, block_counts, num_comp_loc, max_runs_loc = extract_z_runs(
-        labp, dists[4], dists[5], nx, ny,
-        k=params.run_k, cand_k=params.cand_k, interpret=interpret, x_off=x_off,
-    )
-    num_components = lax.psum(num_comp_loc, axis_name)
-    overflow_loc = jnp.any(block_counts > params.cand_k).astype(jnp.int32)
-    max_runs = lax.pmax(max_runs_loc, axis_name)
-    complete = functools.reduce(
-        jnp.logical_and,
-        (
-            num_components <= params.max_roots,
-            lax.psum(overflow_loc, axis_name) == 0,
-            max_runs <= params.run_k,
-        ),
-    )
-
-    # roots: local candidates -> all_gather -> global smallest max_roots
-    r_eff = min(params.max_roots, cands.shape[0])
-    loc_keys, _ = lax.top_k(-cands, r_eff)
-    all_keys = lax.all_gather(loc_keys, axis_name).reshape(-1)
-    keys, _ = lax.top_k(all_keys, min(params.max_roots, all_keys.shape[0]))
-    roots = -keys
-    if roots.shape[0] < params.max_roots:
-        roots = jnp.pad(roots, (0, params.max_roots - roots.shape[0]), constant_values=_BIG)
-    root_valid = roots != _BIG
-
-    stats = run_stats_matmul(run_lab, run_len, run_z0, roots, interpret=interpret)
-    # run features used local x: sum_i_global = sum_i_local + x_off * count
-    stats = stats.at[:, 1].add(x_off.astype(jnp.float32) * stats[:, 0])
-    stats = lax.psum(stats, axis_name)
-    counts = stats[:, 0]
-    sums_ijk = stats[:, 1:4]
-
-    labels = labp[:, :ny, :nz]
-    return finalize_segmentation(
-        labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-        converged, spacing, origin, params,
-    )
-
-
-# ----------------------------------------------------------------- stats
-def _local_component_stats(labels_local, roots, x_off, ny: int, nz: int):
-    """(R, 4) [count, sum_i, sum_j, sum_k] over the LOCAL shard, with GLOBAL
-    i coordinates (x_off added); psum across shards completes the reduction.
-    (jnp fallback path.)"""
-    flat = labels_local.reshape(-1)
-    n = flat.shape[0]
-    chunk = 1 << 15
-    nchunks = -(-n // chunk)
-    flat_padded = jnp.pad(flat, (0, nchunks * chunk - n), constant_values=_BIG)
-
-    def body(acc, c):
-        start = c * chunk
-        lab_c = lax.dynamic_slice(flat_padded, (start,), (chunk,))
-        pos = start + jnp.arange(chunk, dtype=jnp.int32)
-        gi = (pos // (ny * nz) + x_off).astype(jnp.float32)
-        rem = pos % (ny * nz)
-        gj = (rem // nz).astype(jnp.float32)
-        gk = (rem % nz).astype(jnp.float32)
-        feats = jnp.stack([jnp.ones(chunk, jnp.float32), gi, gj, gk], axis=-1)
-        eq = (lab_c[:, None] == roots[None, :]).astype(jnp.float32)
-        return acc + jnp.einsum("cr,cf->rf", eq, feats, precision=lax.Precision.HIGHEST), None
-
-    stats, _ = lax.scan(body, jnp.zeros((roots.shape[0], 4), jnp.float32), jnp.arange(nchunks))
-    return stats
+    # GLOBAL certificate: local within-run adjacent equality on all three
+    # axes (axis-0 pairs within the shard) + the shard-boundary pairs
+    bad = jnp.logical_not(_labels_consistent(lab, reset)).astype(jnp.int32)
+    bad = jnp.maximum(bad, _boundary_bad(lab, jnp.logical_not(reset), axis_name))
+    return lab, lax.psum(bad, axis_name) == 0
 
 
 def segment_volume_sharded(
@@ -414,8 +176,6 @@ def segment_volume_sharded(
     origin,
     params: SegmentationParams = SegmentationParams(),
     axis_name: str = "sp",
-    interpret: Optional[bool] = None,
-    force_general: bool = False,
 ) -> SegmentationResult:
     """`segment_volume` for one x-shard of a volume, called INSIDE shard_map.
 
@@ -424,51 +184,23 @@ def segment_volume_sharded(
     `labels`/`body_mask` are the local shards and everything else is
     replicated (identical on every shard). Certificates (`ccl_converged`,
     `roots_complete`, `blobs_complete`) are global, so the engine's
-    escalation reruns apply.
-
-    With kernels enabled (use_pallas True, or None on TPU) and the local x
-    extent a multiple of 8, this runs the full single-chip Pallas pipeline
-    shard-locally (`_segment_volume_sharded_fast`); otherwise the jnp
-    associative-scan fallback. Both honor `params.passes` and certify via
-    the local-consistency check, so results are bit-identical.
-
-    `force_general=True` keeps the sharded formulation even at sp=1
-    (profiling/parity harnesses that isolate its cost on one chip).
+    escalation reruns apply. Results are bit-identical to `segment_volume`
+    on the whole volume.
     """
-    from mamri_tpu.perception.segmentation import _validate_thresholds, segment_volume
-
     _validate_thresholds(params)
+    if lax.axis_size(axis_name) == 1:
+        # dp-only meshes (sp=1): the axis size is STATIC under shard_map, so
+        # skip the halo concat and x-prefix fix that would degenerate to
+        # copies, and run the single-device pipeline (bit-identical)
+        return segment_volume(data, spacing, origin, params)
     data = jnp.asarray(data)
     if data.dtype != jnp.float32:
-        # scanner-native integer shards: cast on device (the halo exchange
-        # and the fused init kernel fill out-of-band planes with f32 -inf)
+        # scanner-native integer shards: cast on device, shard-locally
         data = data.astype(jnp.float32)
     spacing = jnp.asarray(spacing, dtype=jnp.float32)
     origin = jnp.asarray(origin, dtype=jnp.float32)
-    default_interp = jax.default_backend() in ("cpu",)
-    if (
-        not force_general
-        and lax.axis_size(axis_name) == 1
-        and (interpret is None or interpret == default_interp)
-    ):
-        # dp-only meshes (sp=1): the collectives degenerate to copies but the
-        # sharded formulation still pays the raw-data halo concat, boundary
-        # -run masks and the x-prefix fix (measured 1.07x the single-chip
-        # pipeline in a healthy window, 2.42x in a degraded one —
-        # tools/profile_sharded.py). The axis size is STATIC under
-        # shard_map, so route to the single-chip pipeline, which is
-        # bit-identical at sp=1 (tests/test_shard_seg.py).
-        return segment_volume(data, spacing, origin, params)
-    use_pallas = _use_pallas_local(params)
-    if interpret is None:
-        interpret = default_interp
 
     nxl, ny, nz = data.shape
-    if use_pallas and nxl % 8 == 0 and params.closing_radius == 2:
-        return _segment_volume_sharded_fast(
-            data, spacing, origin, params, axis_name, interpret
-        )
-
     n_sp = lax.axis_size(axis_name)
     nx = n_sp * nxl
     me = lax.axis_index(axis_name)
@@ -486,9 +218,7 @@ def segment_volume_sharded(
     lab0 = jnp.where(closed, lin, _BIG)
     reset = jnp.logical_not(closed)
 
-    labels, converged = _ccl_sweeps_sharded(
-        lab0, reset, params, axis_name, use_pallas, interpret
-    )
+    labels, converged = _ccl_sweeps_sharded(lab0, reset, params, axis_name)
 
     # roots: local exact top-k, merged across shards
     is_root = jnp.logical_and(labels == lin, labels != _BIG)
@@ -503,7 +233,8 @@ def segment_volume_sharded(
         roots = jnp.pad(roots, (0, params.max_roots - roots.shape[0]), constant_values=_BIG)
     root_valid = roots != _BIG
 
-    stats = lax.psum(_local_component_stats(labels, roots, x_off, ny, nz), axis_name)
+    stats = component_stats_reference(labels.reshape(-1), roots, ny, nz, x_off=x_off)
+    stats = lax.psum(stats, axis_name)
     counts = stats[:, 0]
     sums_ijk = stats[:, 1:4]
 

@@ -14,7 +14,7 @@ Fiducials are components with 50 <= volume <= 1500 mm^3; centroids are
 converted LPS->RAS; the body is the largest remaining component
 (Mamri/Mamri.py:1310-1322).
 
-This module is the trusted oracle the JAX/TPU path is tested against.
+This module is the trusted oracle the on-device JAX path is tested against.
 """
 
 from __future__ import annotations

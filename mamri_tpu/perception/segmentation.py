@@ -1,22 +1,20 @@
-"""TPU-native MRI segmentation: threshold -> ball closing -> CCL -> blob stats.
+"""On-device MRI segmentation: threshold -> ball closing -> CCL -> blob stats.
 
-Replaces the reference's SimpleITK C++ pipeline (Mamri/Mamri.py:1304-1341) with
-an on-device jnp/XLA implementation designed for the TPU's memory system:
+Replaces the reference's SimpleITK C++ pipeline (Mamri/Mamri.py:1304-1341)
+with one jit/vmap-compatible program:
 
-  * threshold + morphological closing are element-wise/shift ops that XLA fuses
-    into a handful of HBM passes;
+  * threshold + morphological closing are element-wise/shift ops that XLA
+    fuses into a handful of passes over the volume;
   * connected-component labeling uses *directional segmented min-scans*
-    (`lax.associative_scan` along each axis, both directions) iterated to a
-    fixed point — a data-parallel formulation that converges in a few sweeps
-    for anatomical shapes instead of the O(diameter) of naive 6-neighbor
-    propagation, and avoids the irregular union-find of CPU CCL;
-  * per-component statistics come from a candidate-root reduction (bounded
-    fan-out einsum onto the MXU) instead of scatter-adds, which serialize on
-    TPU. The kernel fast path reduces over the volume's z-RUN decomposition
-    (one slot per maximal foreground run, built from the same run-length
-    distance arrays the CCL sweeps use) rather than over voxels — ~nz/run_k
-    times less compare/matmul work, which also keeps escalated root budgets
-    (noisy scans with thousands of components) at clean-scan cost.
+    along each axis, iterated on a fixed half-sweep schedule — a
+    data-parallel formulation that converges in a few sweeps for anatomical
+    shapes instead of the O(diameter) of naive 6-neighbor propagation, and
+    avoids the irregular union-find of CPU CCL. Each line scan is a
+    `lax.associative_scan` (a CUDA line-scan kernel measured no faster end
+    to end on an H100; see PERF.md);
+  * per-component statistics come from a candidate-root reduction: the
+    `max_roots` smallest roots, then one chunked compare-and-contract of the
+    membership one-hot against [1, i, j, k] features.
 
 Labels are the minimum linear voxel index of each component, so candidate
 ordering matches ITK's raster-scan label order (first voxel encountered).
@@ -26,9 +24,9 @@ Output shapes are static (MAX_BLOBS slots + validity mask) for jit/vmap.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
-import jax
 import jax.numpy as jnp
 from jax import lax
 
@@ -37,15 +35,8 @@ MAX_ROOTS = 256  # candidate components considered for stats (log if exceeded)
 _BIG = jnp.iinfo(jnp.int32).max
 
 
-def _use_pallas() -> bool:
-    """TPU gets the Pallas kernels; CPU (tests, virtual meshes) the jnp path."""
-    return jax.default_backend() not in ("cpu",)
-
-
 class SegmentationParams(NamedTuple):
-    intensity_low: float = 65.0  # must be finite: the kernels' out-of-band
-    # padding fill is -inf, and +-inf thresholds make "below threshold"
-    # unrepresentable (validated in segment_volume/_sharded)
+    intensity_low: float = 65.0  # thresholds must be finite (validated)
     intensity_high: float = 65535.0
     min_volume_mm3: float = 50.0
     max_volume_mm3: float = 1500.0
@@ -53,32 +44,15 @@ class SegmentationParams(NamedTuple):
     max_sweeps: int = 16
     max_blobs: int = MAX_BLOBS
     max_roots: int = MAX_ROOTS
-    use_pallas: Optional[bool] = None  # None = auto (TPU yes, CPU no). Set
-    # False for spatially-sharded (sp) execution: XLA cannot auto-partition
-    # pallas_call, while the jnp path lowers to sharded ops + collectives.
-    exhaustive_roots: bool = False  # jnp-path escalation: exact flat top_k
-    # root selection instead of the blocked two-level top_k (used by the
-    # engine when a result reports roots_complete=False).
-    cand_k: int = 8  # kernel-path root candidates per (8 x, 128 y)-line
-    # grid block (extracted inside the z-runs kernel); the completeness
-    # certificate verifies no block overflowed, and the engine escalates
-    # cand_k alongside max_roots on noisy volumes.
-    run_k: int = 8  # kernel-path z-runs per (x, y) line for run-length
-    # component stats; certified (max runs-per-line <= run_k) and escalated
-    # alongside max_roots/cand_k (clean anatomy needs 2-4).
+    exhaustive_roots: bool = False  # exact flat top_k root selection instead
+    # of the blocked two-level top_k (the engine sets it when the blocked
+    # selection's per-block budget overflowed).
     passes: Optional[int] = None  # explicit HALF-SWEEP schedule length:
     # alternating [yz, x, yz, x, ...] passes. None = 2*max_sweeps (classic
     # full sweeps). The local-consistency certificate proves the fixed point
     # regardless of schedule, so an odd count (trailing yz, no final x) is
     # valid and the engine defaults to passes=3 — convex-ish anatomy
     # converges with [yz, x, yz] and the certificate escalates the rest.
-    compact_stats: Optional[bool] = None  # kernel-path stats over a
-    # top_k-COMPACTED run table instead of the dense (nx, k, ny) one. The
-    # stats cost is the (R x M) one-hot VMEM traffic; real runs are ~3-30x
-    # sparser than the dense slots, so at escalated R this is the lever that
-    # keeps noisy scans (thousands of speckle components) fast. None = auto
-    # (on when max_roots > 256). Certified: n_runs <= the static cap, else
-    # the engine disables compaction (exact dense rerun).
 
 
 class SegmentationResult(NamedTuple):
@@ -89,26 +63,20 @@ class SegmentationResult(NamedTuple):
     body_mask: jnp.ndarray  # (nx, ny, nz) bool
     body_volume_mm3: jnp.ndarray  # () f32
     body_found: jnp.ndarray  # () bool
-    num_components: jnp.ndarray  # () int32 — total component count; EXACT
-    # when roots_complete is True (on the kernel fast path it is the sum of
-    # per-block root-table counts, so roots beyond a line's run_k budget are
-    # uncounted until escalation restores completeness)
+    num_components: jnp.ndarray  # () int32 — total component count (exact)
     labels: jnp.ndarray  # (nx, ny, nz) int32 min-linear-index labels (_BIG = background)
-    ccl_converged: jnp.ndarray  # () bool — last sweep changed nothing => labels
-    # are the exact CCL fixed point (certificate; escalate max_sweeps if False)
+    ccl_converged: jnp.ndarray  # () bool — labels are the exact CCL fixed
+    # point (certificate; escalate passes/max_sweeps if False)
     roots_complete: jnp.ndarray  # () bool — every component's stats were
-    # considered (num_components <= max_roots and, on the blocked fast path,
-    # no block overflowed its candidate budget); escalate otherwise
+    # considered (num_components <= max_roots and no block of the blocked
+    # root selection overflowed); escalate otherwise
     blobs_complete: jnp.ndarray  # () bool — every in-band (50-1500 mm^3)
     # component got a blob slot (num_in_band <= max_blobs). The ITK reference
     # has no component cap (Mamri.py:1310-1317), so a full blob band is a
     # silent truncation unless certified; the engine escalates max_blobs.
-    # Sub-certificates of roots_complete, for TARGETED escalation (only the
-    # failing budget re-runs stronger; see MamriEngine._escalate_seg_params):
-    count_ok: jnp.ndarray = True  # num_components <= max_roots
-    cand_ok: jnp.ndarray = True  # kernel path: no block exceeded cand_k
-    runs_ok: jnp.ndarray = True  # kernel path: no line exceeded run_k
-    compact_ok: jnp.ndarray = True  # compact-stats path: n_runs <= cap
+    count_ok: jnp.ndarray = True  # num_components <= max_roots: the part of
+    # roots_complete that only a larger max_roots can fix (targeted
+    # escalation, see MamriEngine._escalate_seg_params)
 
 
 def _ball_offsets(radius: int) -> Tuple[Tuple[int, int, int], ...]:
@@ -192,8 +160,7 @@ def _segmented_min_scan(lab, reset, axis: int, reverse: bool):
 
     Semiring scan: element = (reset_flag, value); combine keeps the right
     value at a reset, else the min — associative, so `lax.associative_scan`
-    evaluates it in log depth on the VPU.
-    """
+    evaluates it in log depth."""
 
     def combine(a, b):
         fa, va = a
@@ -204,30 +171,29 @@ def _segmented_min_scan(lab, reset, axis: int, reverse: bool):
     return vals
 
 
-def connected_components(mask, max_sweeps: int = 8, use_pallas: Optional[bool] = None):
+def bidirectional_min_scan(lab, reset, axis: int):
+    """One CCL line pass: min(forward scan, backward scan, lab) along
+    `axis`. Every voxel of a foreground run ends up with the run's minimum
+    label."""
+    fwd = _segmented_min_scan(lab, reset, axis, reverse=False)
+    bwd = _segmented_min_scan(lab, reset, axis, reverse=True)
+    return jnp.minimum(jnp.minimum(fwd, bwd), lab)
+
+
+def connected_components(mask, max_sweeps: int = 8):
     """6-connectivity CCL: label = min linear index over the component.
 
-    Runs exactly `max_sweeps` rounds of {forward, backward} segmented
-    min-scans along all three axes. Each sweep propagates labels along entire
-    straight runs, so convergence needs only as many sweeps as the
-    component's shortest paths turn corners — anatomical blobs/bodies settle
-    in 2-4; sweeps past convergence are idempotent. A *fixed* `lax.scan` (not
-    a convergence-tested while_loop) is deliberate: it is vmap-exact (a
-    data-dependent while_loop under vmap produced corrupted labels at volume
-    scale), avoids a full-volume reduction per sweep, and compiles to a
-    static-shape program. Convergence is certified instead: the per-sweep
-    changed flags cost ~nothing (computed in-VMEM), and the engine escalates
-    max_sweeps when the last sweep still changed labels (see segment_volume's
-    ccl_converged). Background voxels carry the sentinel int32 max.
+    Runs exactly `max_sweeps` rounds of bidirectional segmented min-scans
+    along all three axes. Each sweep propagates labels along entire straight
+    runs, so convergence needs only as many sweeps as the component's
+    shortest paths turn corners — anatomical blobs/bodies settle in 2-4;
+    sweeps past convergence are idempotent. A *fixed* `lax.scan` (not a
+    convergence-tested while_loop) is deliberate: it is vmap-exact, avoids a
+    full-volume reduction per sweep, and compiles to a static-shape program.
+    Convergence is certified instead (see segment_volume's ccl_converged).
+    Background voxels carry the sentinel int32 max.
     """
-    lab0 = _init_labels(mask)
-    if use_pallas is None:
-        use_pallas = _use_pallas()
-    if use_pallas:
-        lab0, reset, pads = _pad_for_kernels(lab0, jnp.logical_not(mask))
-        labels, _ = _ccl_sweeps_pallas(lab0, reset, max_sweeps)
-        return _crop3(labels, mask.shape)
-    labels, _ = _ccl_sweeps_jnp(lab0, jnp.logical_not(mask), max_sweeps)
+    labels, _ = _ccl_sweeps(_init_labels(mask), jnp.logical_not(mask), max_sweeps)
     return labels
 
 
@@ -243,101 +209,30 @@ def _init_labels(mask):
     return jnp.where(mask, lin, _BIG)
 
 
-def _pad_for_kernels(lab0, reset):
-    """Pad to the (8, 8, 128) tile multiples the sweep kernels require.
-    Padding is background (label sentinel, reset=1): inert under every pass."""
-    pads = tuple((-s) % m for s, m in zip(lab0.shape, (8, 8, 128)))
-    if any(pads):
-        cfg = tuple((0, p) for p in pads)
-        lab0 = jnp.pad(lab0, cfg, constant_values=_BIG)
-        reset = jnp.pad(reset, cfg, constant_values=True)
-    return lab0, reset, pads
-
-
-def _crop3(a, shape):
-    return a[: shape[0], : shape[1], : shape[2]]
-
-
-def _ccl_sweeps_pallas(
-    lab0, reset, max_sweeps: int, passes: Optional[int] = None, interpret: Optional[bool] = None
-):
-    """Fixed sweeps with the run-length Pallas kernels on PADDED arrays.
-    Returns (labels, converged): converged certifies the exact fixed point
-    (the final sweep changed nothing, and sweeps are idempotent past
-    convergence)."""
-    from mamri_tpu.perception.pallas_ops import compute_reset_distances
-
-    if interpret is None:
-        interpret = jax.default_backend() == "cpu"
-    dists = compute_reset_distances(reset.astype(jnp.int8), interpret=interpret)
-    return _ccl_sweeps_pallas_from_dists(
-        lab0, dists, max_sweeps, passes=passes, interpret=interpret
-    )
-
-
-def _ccl_sweeps_pallas_from_dists(
-    lab0, dists, max_sweeps: int, passes: Optional[int] = None, interpret: bool = False
-):
-    """Sweep loop over precomputed run-length distances (shared with the
-    run-based stats path, which reuses the z distances).
+def _ccl_sweeps(lab0, reset, max_sweeps: int, passes: Optional[int] = None):
+    """Fixed CCL sweep schedule; returns (labels, converged).
 
     Convergence is certified by the LOCAL-CONSISTENCY check, not an extra
     sweep: labels are monotone non-increasing member indices, so "every
     within-run adjacent pair equal" holds iff the labels are the exact CCL
-    fixed point (uniformity on a component forces its minimum). The check is
-    one d=1 roll per axis (~1/4 sweep). That makes ANY half-sweep schedule
-    valid: `passes` counts alternating [yz, x, yz, ...] half-sweeps (None =
-    2*max_sweeps); the engine's default of 3 drops the final x half-sweep,
-    which convex-ish anatomy never needs — and the certificate escalates
-    the scenes that do."""
-    from mamri_tpu.perception.pallas_ops import (
-        ccl_check_consistency,
-        ccl_check_consistency_x,
-        ccl_half_sweep_yz,
-        ccl_sweep_dist,
-    )
-
-    if passes is None:
-        passes = 2 * max_sweeps
-
-    def body(lab, _):
-        lab, changed = ccl_sweep_dist(lab, dists, interpret=interpret)
-        return lab, changed
-
-    lab, _ = lax.scan(body, lab0, None, length=passes // 2)
-    if passes % 2:
-        # the final yz half-sweep verifies its own y/z consistency in-kernel;
-        # only the cross-block x check runs separately
-        lab, bad_yz = ccl_half_sweep_yz(lab, dists, interpret=interpret, with_check=True)
-        bad = jnp.maximum(bad_yz, ccl_check_consistency_x(lab, dists, interpret=interpret))
-        return lab, bad == 0
-    return lab, ccl_check_consistency(lab, dists, interpret=interpret) == 0
-
-
-def _ccl_sweeps_jnp(lab0, reset, max_sweeps: int, passes: Optional[int] = None):
-    """XLA associative-scan sweep path (CPU tests, sp-sharded execution).
-
-    Certified by the same local-consistency check as the kernel path (see
-    `_ccl_sweeps_pallas_from_dists`). With `passes` set, the schedule
-    alternates [yz, x, yz, ...] EXACTLY like the kernels (the x pass must
-    come between yz passes — cross-plane propagation in the middle is what
-    makes the odd default work); `passes=None` keeps the classic per-sweep
-    (x, y, z) axis order for back-compat with existing max_sweeps callers."""
+    fixed point (uniformity on a component forces its minimum). That makes
+    ANY half-sweep schedule valid. With `passes` set, the schedule
+    alternates [yz, x, yz, ...] half-sweeps (the x pass must come between
+    yz passes — cross-plane propagation in the middle is what makes the odd
+    default work); `passes=None` keeps the classic per-sweep (x, y, z) axis
+    order for max_sweeps callers."""
 
     def scan_axis(lab, axis):
-        fwd = _segmented_min_scan(lab, reset, axis, reverse=False)
-        bwd = _segmented_min_scan(lab, reset, axis, reverse=True)
-        return jnp.minimum(jnp.minimum(fwd, bwd), lab)
+        return bidirectional_min_scan(lab, reset, axis)
 
     if passes is None:
         def body(lab, _):
-            prev = lab
             for axis in (0, 1, 2):
                 lab = scan_axis(lab, axis)
-            return lab, jnp.any(lab != prev)
+            return lab, None
 
         lab, _ = lax.scan(body, lab0, None, length=max_sweeps)
-        return lab, _labels_consistent_jnp(lab, reset)
+        return lab, _labels_consistent(lab, reset)
 
     def full_sweep(lab, _):
         lab = scan_axis(scan_axis(lab, 1), 2)  # yz half
@@ -347,10 +242,10 @@ def _ccl_sweeps_jnp(lab0, reset, max_sweeps: int, passes: Optional[int] = None):
     lab, _ = lax.scan(full_sweep, lab0, None, length=passes // 2)
     if passes % 2:
         lab = scan_axis(scan_axis(lab, 1), 2)
-    return lab, _labels_consistent_jnp(lab, reset)
+    return lab, _labels_consistent(lab, reset)
 
 
-def _labels_consistent_jnp(lab, reset):
+def _labels_consistent(lab, reset):
     """() bool: True iff every within-run adjacent label pair is equal along
     every axis — i.e. `lab` is the exact CCL fixed point."""
     fg = jnp.logical_not(reset)
@@ -367,43 +262,50 @@ def _labels_consistent_jnp(lab, reset):
     return jnp.logical_not(bad)
 
 
-def _ccl_sweeps(lab0, reset, max_sweeps: int, use_pallas: bool):
-    """Back-compat shim: run sweeps from precomputed initial labels on
-    unpadded arrays, labels only."""
-    if use_pallas:
-        shape = lab0.shape
-        lab0, reset, _ = _pad_for_kernels(lab0, reset)
-        labels, _ = _ccl_sweeps_pallas(lab0, reset, max_sweeps)
-        return _crop3(labels, shape)
-    labels, _ = _ccl_sweeps_jnp(lab0, reset, max_sweeps)
-    return labels
+def component_stats_reference(flat_labels, roots, ny: int, nz: int, x_off=0):
+    """(R, 4) [count, sum_i, sum_j, sum_k] of the voxels whose label equals
+    each root. `flat_labels` is an (x, y, z) C-order volume flattened; i is
+    offset by `x_off` (an x-shard's global offset, 0 on one device).
+
+    The membership one-hot (chunk, R) is contracted with per-voxel features
+    [1, i, j, k] chunk by chunk, so it never materializes at volume size (a
+    full (n, R) f32 would be ~34 GB at 256^3). HIGHEST precision keeps the
+    f32 contraction out of TF32."""
+    n = flat_labels.shape[0]
+    chunk = 1 << 15
+    nchunks = -(-n // chunk)
+    flat_padded = jnp.pad(flat_labels, (0, nchunks * chunk - n), constant_values=_BIG)
+
+    def body(acc, c):
+        start = c * chunk
+        lab_c = lax.dynamic_slice(flat_padded, (start,), (chunk,))
+        pos = start + jnp.arange(chunk, dtype=jnp.int32)
+        gi = (pos // (ny * nz) + x_off).astype(jnp.float32)
+        rem = pos % (ny * nz)
+        gj = (rem // nz).astype(jnp.float32)
+        gk = (rem % nz).astype(jnp.float32)
+        feats = jnp.stack([jnp.ones(chunk, jnp.float32), gi, gj, gk], axis=-1)
+        eq = (lab_c[:, None] == roots[None, :]).astype(jnp.float32)
+        return acc + jnp.einsum("cr,cf->rf", eq, feats, precision=lax.Precision.HIGHEST), None
+
+    stats, _ = lax.scan(body, jnp.zeros((roots.shape[0], 4), jnp.float32), jnp.arange(nchunks))
+    return stats
 
 
-def _component_stats(
-    labels,
-    mask,
-    max_roots: int,
-    use_pallas: Optional[bool] = None,
-    exhaustive: bool = False,
-):
+def _component_stats(labels, max_roots: int, exhaustive: bool = False):
     """Counts and index-coordinate sums for up to `max_roots` components.
 
     A voxel is its component's *root* iff its label equals its own linear
-    index. Candidate roots are the `max_roots` smallest (= ITK label order);
-    their stats come from one fused compare-broadcast-reduce (MXU-friendly
-    bounded fan-out) rather than a serialized TPU scatter.
+    index. Candidate roots are the `max_roots` smallest (= ITK label order).
 
-    Returns (roots, root_valid, counts, sums_ijk, num_components, complete):
-    `complete` is True iff every component was considered (num_components <=
-    max_roots and no candidate was lost to the blocked top_k); callers
-    escalate (exhaustive=True and/or larger max_roots) when False.
+    Returns (roots, root_valid, counts, sums_ijk, num_components, count_ok,
+    complete): `count_ok` is num_components <= max_roots; `complete` also
+    requires that no candidate was lost to the blocked top_k. Callers
+    escalate (larger max_roots, or exhaustive=True) when False.
 
     Works directly on the volume's native (x, y, z) C-order — the raster
     linear index each label encodes is recomputed arithmetically per voxel,
-    so no full-volume transpose pass is needed (2x HBM volume traffic
-    saved; the stats matmul uses the xyz-decoding kernel)."""
-    if use_pallas is None:
-        use_pallas = _use_pallas()
+    so no full-volume transpose pass is needed."""
     shape = labels.shape
     nx, ny, nz = shape
     n = nx * ny * nz
@@ -418,12 +320,12 @@ def _component_stats(
     lin = gi + nx * (gj + ny * gk)
     is_root = jnp.logical_and(flat == lin, flat != _BIG)
     num_components = jnp.sum(is_root, dtype=jnp.int32)
-    complete = num_components <= max_roots
+    count_ok = num_components <= max_roots
+    complete = count_ok
 
-    # smallest root indices first. A flat top_k over the whole volume costs
-    # ~42 ms at 256^3 (the exact `exhaustive` escalation path); two-level
-    # (per-block then global) is 2.5x cheaper and exact as long as no block
-    # holds more than `per_block` roots — which is verified.
+    # smallest root indices first. Two-level (per-block then global) top_k
+    # is cheaper than one flat top_k over the volume, and exact as long as
+    # no block holds more than `per_block` roots — which is verified.
     root_keys = jnp.where(is_root, -lin, -_BIG)
     if n >= (1 << 20) and not exhaustive:
         nblocks = 2048
@@ -443,149 +345,15 @@ def _component_stats(
     roots = -keys  # (R,) root linear indices; _BIG where no component
     root_valid = roots != _BIG
 
-    # Membership one-hot (chunk, R) contracted with per-voxel features
-    # [1, i, j, k] -> (R, 4) stats. The one-hot never materializes at full
-    # volume size (a full (n, R) f32 would be ~34 GB at 256^3): on TPU it
-    # lives only in VMEM (Pallas MXU kernel); the jnp fallback streams chunks.
-    from mamri_tpu.perception.pallas_ops import (
-        component_stats_matmul_xyz,
-        component_stats_matmul_xyz_reference,
-    )
-
-    if use_pallas:
-        stats = component_stats_matmul_xyz(
-            flat, roots, nx, ny, nz, interpret=jax.default_backend() == "cpu"
-        )
-    else:
-        stats = component_stats_matmul_xyz_reference(flat, roots, nx, ny, nz)
+    stats = component_stats_reference(flat, roots, ny, nz)
     counts = stats[:, 0]
     sums_ijk = stats[:, 1:4]
-    return roots, root_valid, counts, sums_ijk, num_components, complete
-
-
-def _pow2ceil(v: int) -> int:
-    return 1 << max(int(v) - 1, 1).bit_length()
-
-
-def compact_runs(run_lab, run_len, run_z0, cap: int):
-    """Compact the dense (nx, k, ny) z-run table to its `cap` lowest-indexed
-    occupied slots — the input `run_stats_matmul_compact` consumes.
-
-    Dense run tables are mostly empty (~17.9k of 524k slots hold real runs
-    on a noisy 256³ scan), and the stats cost is the (R x M) one-hot VMEM
-    traffic, so this top_k gather is what keeps escalated root budgets
-    cheap. Returns (lab_c, len_c, z0_c, gi_c, gj_c, n_runs): the compacted
-    columns (label `_BIG` / len 0 in unused slots), the x / y grid
-    coordinates decoded from the flat slot position, and the true occupied
-    count — exact iff `n_runs <= cap` (the `compact_ok` certificate; the
-    engine reruns dense otherwise). Used by `_component_stats_fast` and by
-    the parity harness so the hardware check exercises THIS gather, not a
-    copy."""
-    nxp, kk, nyp = run_lab.shape
-    m = nxp * kk * nyp
-    lnflat = run_len.reshape(-1)
-    n_runs = jnp.sum(lnflat > 0, dtype=jnp.int32)
-    pos_keys = jnp.where(lnflat > 0, -jnp.arange(m, dtype=jnp.int32), -_BIG)
-    kv, _ = lax.top_k(pos_keys, cap)
-    pos = -kv  # ascending original slot positions; _BIG where empty
-    real = pos < m
-    safe = jnp.where(real, pos, 0)
-    lab_c = jnp.where(real, jnp.take(run_lab.reshape(-1), safe), _BIG)
-    len_c = jnp.where(real, jnp.take(lnflat, safe), 0)
-    z0_c = jnp.where(real, jnp.take(run_z0.reshape(-1), safe), 0)
-    gi_c = jnp.where(real, pos // (kk * nyp), 0)
-    gj_c = jnp.where(real, pos % nyp, 0)
-    return lab_c, len_c, z0_c, gi_c, gj_c, n_runs
-
-
-def _component_stats_fast(
-    labels_padded, dists, shape, max_roots: int, cand_k: int = 8, run_k: int = 8,
-    compact: Optional[bool] = None, interpret: bool = False,
-):
-    """TPU fast path: per-slab root extraction kernel + run-length stats.
-
-    `labels_padded` is the tile-padded label volume straight out of the sweep
-    kernels; `dists` the run-length distances already computed for the
-    sweeps (the z pair doubles as the run table); `shape` the original
-    (nx, ny, nz). Stats are computed over the ~nz/run_k-times-smaller z-run
-    decomposition (`run_stats_matmul`), so escalated root budgets stay
-    cheap; at escalated `max_roots` (> 256, or `compact=True`) the run table
-    is additionally top_k-COMPACTED to the real runs before the stats
-    contraction — the (R x M) one-hot traffic is the cost, and clinical
-    scenes fill only ~3-30% of the dense slots.
-
-    Exact whenever `complete` is True; the sub-certificates say WHICH budget
-    to escalate otherwise: `count_ok` (num_components <= max_roots),
-    `cand_ok` (no 8-voxel x-slab held > cand_k roots), `runs_ok` (no (x, y)
-    line held > run_k z-runs), `compact_ok` (n_runs <= the compaction cap —
-    escalation disables compaction for an exact dense rerun).
-
-    Returns (labels, roots, root_valid, counts, sums_ijk, num_components,
-    complete, count_ok, cand_ok, runs_ok, compact_ok).
-    """
-    from mamri_tpu.perception.pallas_ops import (
-        extract_z_runs,
-        run_stats_matmul,
-        run_stats_matmul_compact,
-    )
-
-    nx, ny, nz = shape
-    dfz, dbz = dists[4], dists[5]
-    run_lab, run_z0, run_len, cands, block_counts, num_components, max_runs = extract_z_runs(
-        labels_padded, dfz, dbz, nx, ny, k=run_k, cand_k=cand_k, interpret=interpret
-    )
-    # root candidates ride along inside the runs kernel (the block is already
-    # in VMEM — no second labels pass); complete iff no grid block exceeded
-    # its cand_k root budget AND no line exceeded its run_k run budget.
-    r_eff = min(max_roots, cands.shape[0])
-    keys, _ = lax.top_k(-cands, r_eff)
-    roots = -keys
-    if r_eff < max_roots:
-        roots = jnp.pad(roots, (0, max_roots - r_eff), constant_values=_BIG)
-    root_valid = roots != _BIG
-
-    count_ok = num_components <= max_roots
-    cand_ok = jnp.all(block_counts <= cand_k)
-    runs_ok = max_runs <= run_k
-
-    use_compact = compact if compact is not None else (max_roots > 256)
-    nxp, kk, nyp = run_lab.shape
-    m = nxp * kk * nyp
-    if use_compact:
-        # cap: >= half the (x, y) lines holding a run — far above clinical
-        # occupancy; certified (n_runs <= cap) and escalatable to dense.
-        cap = min(m, max(32768, _pow2ceil((nx * ny) // 2)))
-        lab_c, len_c, z0_c, gi_c, gj_c, n_runs = compact_runs(
-            run_lab, run_len, run_z0, cap
-        )
-        compact_ok = n_runs <= cap
-        stats = run_stats_matmul_compact(
-            lab_c, len_c, z0_c, gi_c, gj_c, roots, interpret=interpret
-        )
-    else:
-        compact_ok = jnp.asarray(True)
-        stats = run_stats_matmul(run_lab, run_len, run_z0, roots, interpret=interpret)
-
-    complete = functools.reduce(
-        jnp.logical_and, (count_ok, cand_ok, runs_ok, compact_ok)
-    )
-    labels = _crop3(labels_padded, shape)
-    counts = stats[:, 0]
-    sums_ijk = stats[:, 1:4]
-    return (
-        labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-        count_ok, cand_ok, runs_ok, compact_ok,
-    )
+    return roots, root_valid, counts, sums_ijk, num_components, count_ok, complete
 
 
 def _validate_thresholds(params: SegmentationParams):
-    import math
-
     if not (math.isfinite(params.intensity_low) and math.isfinite(params.intensity_high)):
-        raise ValueError(
-            "intensity thresholds must be finite (the kernels pad volume "
-            "borders with -inf as the out-of-band fill)"
-        )
+        raise ValueError("intensity thresholds must be finite")
 
 
 def segment_volume(data, spacing, origin, params: SegmentationParams = SegmentationParams()):
@@ -600,82 +368,29 @@ def segment_volume(data, spacing, origin, params: SegmentationParams = Segmentat
     data = jnp.asarray(data)
     if data.dtype != jnp.float32:
         # Accept scanner-native integer volumes (Volume preserves int8/16):
-        # the cast runs ON DEVICE (one fused HBM pass, ~0.1 ms at 256^3) so
-        # callers ship compact dtypes over the host->device link. The fused
-        # init kernel needs f32 (its out-of-band border fill is -inf).
+        # the cast runs ON DEVICE, fused into the threshold, so callers ship
+        # compact dtypes over the host->device link.
         data = data.astype(jnp.float32)
     spacing = jnp.asarray(spacing, dtype=jnp.float32)
     origin = jnp.asarray(origin, dtype=jnp.float32)
 
-    pallas_on = params.use_pallas if params.use_pallas is not None else _use_pallas()
-    if pallas_on and params.closing_radius == 2:
-        # fused threshold + ball(2) closing + label init in one kernel pass.
-        # (A deeper fusion — first yz half-sweep + yz distances inside the
-        # init kernel — measured SLOWER: the flag-carrying in-kernel scan
-        # costs ~2x a dist-form pass, and precomputed distance arrays
-        # amortize across all later passes, which fusion forfeits. See
-        # docs/ROADMAP.md.)
-        from mamri_tpu.perception.pallas_ops import (
-            compute_reset_distances,
-            fused_threshold_close_init,
-        )
-
-        interp = jax.default_backend() == "cpu"  # CPU: interpret-mode kernels
-        mask_i32, lab0 = fused_threshold_close_init(
-            data, params.intensity_low, params.intensity_high, interpret=interp
-        )
-        lab0, reset, _ = _pad_for_kernels(lab0, mask_i32 == 0)
-        dists = compute_reset_distances(reset.astype(jnp.int8), interpret=interp)
-        labels_padded, converged = _ccl_sweeps_pallas_from_dists(
-            lab0, dists, params.max_sweeps, passes=params.passes, interpret=interp
-        )
-        (
-            labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-            count_ok, cand_ok, runs_ok, compact_ok,
-        ) = _component_stats_fast(
-            labels_padded,
-            dists,
-            data.shape,
-            params.max_roots,
-            cand_k=params.cand_k,
-            run_k=params.run_k,
-            compact=params.compact_stats,
-            interpret=interp,
-        )
-    else:
-        mask = jnp.logical_and(data >= params.intensity_low, data <= params.intensity_high)
-        closed = binary_close(mask, params.closing_radius)
-        if pallas_on:
-            lab0, reset, _ = _pad_for_kernels(_init_labels(closed), jnp.logical_not(closed))
-            labels_padded, converged = _ccl_sweeps_pallas(
-                lab0, reset, params.max_sweeps, passes=params.passes
-            )
-            labels = _crop3(labels_padded, data.shape)
-        else:
-            labels, converged = _ccl_sweeps_jnp(
-                _init_labels(closed), jnp.logical_not(closed), params.max_sweeps,
-                passes=params.passes,
-            )
-        roots, root_valid, counts, sums_ijk, num_components, complete = _component_stats(
-            labels, closed, params.max_roots, pallas_on, exhaustive=params.exhaustive_roots
-        )
-        # jnp path: `complete` covers the count + blocked-top_k budgets —
-        # count_ok carries it so targeted escalation bumps max_roots/
-        # exhaustive_roots; the kernel-only budgets are trivially fine
-        count_ok = complete
-        cand_ok = runs_ok = compact_ok = jnp.asarray(True)
-
+    mask = jnp.logical_and(data >= params.intensity_low, data <= params.intensity_high)
+    closed = binary_close(mask, params.closing_radius)
+    labels, converged = _ccl_sweeps(
+        _init_labels(closed), jnp.logical_not(closed), params.max_sweeps, passes=params.passes
+    )
+    roots, root_valid, counts, sums_ijk, num_components, count_ok, complete = _component_stats(
+        labels, params.max_roots, exhaustive=params.exhaustive_roots
+    )
     return finalize_segmentation(
         labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-        converged, spacing, origin, params,
-        count_ok=count_ok, cand_ok=cand_ok, runs_ok=runs_ok, compact_ok=compact_ok,
+        converged, spacing, origin, params, count_ok=count_ok,
     )
 
 
 def finalize_segmentation(
     labels, roots, root_valid, counts, sums_ijk, num_components, complete,
-    converged, spacing, origin, params: SegmentationParams,
-    count_ok=None, cand_ok=None, runs_ok=None, compact_ok=None,
+    converged, spacing, origin, params: SegmentationParams, count_ok=None,
 ) -> SegmentationResult:
     """Blob-band selection + body extraction from per-component stats.
 
@@ -726,10 +441,7 @@ def finalize_segmentation(
         ccl_converged=converged,
         roots_complete=complete,
         blobs_complete=blobs_complete,
-        # legacy callers (the sharded path passes only `complete`): the count
-        # budget is the one every stats path shares, so it inherits it
+        # the sharded path selects roots exactly, so its only completeness
+        # budget is the count
         count_ok=complete if count_ok is None else count_ok,
-        cand_ok=jnp.asarray(True) if cand_ok is None else cand_ok,
-        runs_ok=jnp.asarray(True) if runs_ok is None else runs_ok,
-        compact_ok=jnp.asarray(True) if compact_ok is None else compact_ok,
     )

@@ -2,7 +2,7 @@
 
 The reference runs vtkCollisionDetectionFilter (triangle-exact, C++) per robot
 part per configuration, sequentially (Mamri/Mamri.py:1555-1575, :976-982).
-TPU-native redesign: the body segmentation IS already a voxel grid — robot
+Accelerator redesign: the body segmentation IS already a voxel grid — robot
 part surfaces become point clouds (utils/stl.py), a configuration check is
 "transform points by FK, sample the occupancy grid", and a whole 101-sample
 trajectory is one vmapped tensor op. Conservative in the safety-critical

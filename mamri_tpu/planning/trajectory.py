@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 import jax
 import jax.numpy as jnp
 
+from mamri_tpu.core import transforms as T
 from mamri_tpu.core.robot import RobotModel
 from mamri_tpu.ik.lm import least_squares_lm
 from mamri_tpu.ik.residuals import trajectory_pose_residual
@@ -55,7 +56,7 @@ def _orthonormal_basis(x_axis):
     degeneracy threshold can never drift between them."""
     up = jnp.asarray([0.0, 0.0, 1.0], dtype=x_axis.dtype)
     alt = jnp.asarray([0.0, 1.0, 0.0], dtype=x_axis.dtype)
-    up = jnp.where(jnp.abs(jnp.dot(x_axis, up)) > 0.99, alt, up)
+    up = jnp.where(jnp.abs(T.matmul(x_axis, up)) > 0.99, alt, up)
     y_axis = jnp.cross(up, x_axis)
     y_axis = y_axis / jnp.maximum(jnp.linalg.norm(y_axis), 1e-9)
     z_axis = jnp.cross(x_axis, y_axis)
@@ -103,7 +104,7 @@ def analytic_trajectory_seeds(model: RobotModel, target_tf, base_tf, n_roll: int
         z6 = -s * y0 + c * z0
         r = jnp.stack([x6, y6, z6], axis=1)
         frame = jnp.eye(4, dtype=dtype)
-        frame = frame.at[:3, :3].set(r).at[:3, 3].set(tip - r @ needle_off)
+        frame = frame.at[:3, :3].set(r).at[:3, 3].set(tip - T.matmul(r, needle_off))
         return analytic_ik_seeds(model, frame, base_tf)
 
     return jax.vmap(seeds_for_roll)(rolls).reshape(-1, model.num_joints)

@@ -1,4 +1,4 @@
-"""L-shaped fiducial-triplet matching, vectorized for TPU.
+"""L-shaped fiducial-triplet matching, vectorized for the accelerator.
 
 The reference scans `itertools.combinations` of detected blobs per
 marker-bearing link, accepting the first triplet whose sorted pairwise

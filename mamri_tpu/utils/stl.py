@@ -2,7 +2,7 @@
 
 The reference reads collision meshes with vtkSTLReader
 (Mamri/Mamri.py:1729-1732) and tests triangle-exact contact with
-vtkCollisionDetectionFilter. The TPU-native pipeline instead converts each
+vtkCollisionDetectionFilter. The on-device pipeline instead converts each
 mesh ONCE at load time into an area-weighted surface point cloud; collision
 queries then become trilinear occupancy lookups on-device
 (mamri_tpu/planning/collision.py), vmappable over whole trajectories.

@@ -781,32 +781,30 @@ def test_jit_cache_thread_safety():
 
 
 def test_escalation_exhaustive_escape_at_maxed_roots():
-    """r5 review: a user config starting at max_roots=4096 on the jnp path
-    (count_ok also covers the blocked-top_k budget there) must still get the
-    exhaustive flat-top_k rerun instead of 'uncertified at strongest
-    settings' — max_roots has nowhere to grow but exhaustive_roots does."""
+    """A config starting at max_roots=4096 whose count fits but whose
+    blocked top_k overflowed a block must still get the exhaustive
+    flat-top_k rerun instead of 'uncertified at strongest settings' —
+    max_roots has nowhere to grow but exhaustive_roots does."""
     p = SegmentationParams(max_roots=4096, exhaustive_roots=False)
-    # targeted path (sub-certificates reported), jnp path
+    # targeted: the count fits, so only the selection changes
     new = MamriEngine._escalate_seg_params(
-        p, converged=True, complete=False, blobs_complete=True,
-        count_ok=False, cand_ok=True, runs_ok=True, compact_ok=True,
-        jnp_path=True,
+        p, converged=True, complete=False, blobs_complete=True, count_ok=True
     )
     assert new is not None and new.exhaustive_roots
     assert new.max_roots == 4096
-    # kernel path: exhaustive_roots is a no-op there — no wasted rerun
+    # targeted: a count overflow at the max_roots cap cannot be helped by
+    # the exact selection — no wasted rerun
     assert MamriEngine._escalate_seg_params(
-        p, converged=True, complete=False, blobs_complete=True,
-        count_ok=False, cand_ok=True, runs_ok=True, compact_ok=True,
-        jnp_path=False,
+        p, converged=True, complete=False, blobs_complete=True, count_ok=False
     ) is None
-    # blanket path (legacy 3-arg callers)
-    p2 = SegmentationParams(max_roots=4096, cand_k=256, run_k=128, exhaustive_roots=False)
-    new2 = MamriEngine._escalate_seg_params(p2, converged=True, complete=False)
+    # blanket path (callers without the sub-certificate)
+    new2 = MamriEngine._escalate_seg_params(p, converged=True, complete=False)
     assert new2 is not None and new2.exhaustive_roots
-    # once exhaustive, a still-failing count certificate is terminal
-    assert MamriEngine._escalate_seg_params(
-        new, converged=True, complete=False, blobs_complete=True,
-        count_ok=False, cand_ok=True, runs_ok=True, compact_ok=True,
-        jnp_path=True,
-    ) is None
+    # once exhaustive at the cap, a still-failing certificate is terminal
+    assert MamriEngine._escalate_seg_params(new2, converged=True, complete=False) is None
+    # targeted count overflow below the cap grows max_roots only
+    small = SegmentationParams(max_roots=128)
+    grown = MamriEngine._escalate_seg_params(
+        small, converged=True, complete=False, blobs_complete=True, count_ok=False
+    )
+    assert grown.max_roots == 1024 and not grown.exhaustive_roots

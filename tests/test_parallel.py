@@ -57,7 +57,7 @@ def test_dp_sharded_batch_matches_single_device(engine):
 
 def test_dp_sp_sharded_segmentation_consistent(engine):
     """Spatially sharding the volume's x extent must not change results:
-    XLA inserts halo exchanges for the shifted/scanned ops."""
+    the sharded segmentation exchanges halos and scan summaries explicitly."""
     vol = _scene(engine)
     data = vol.data
     pad_x = (-data.shape[0]) % 4
@@ -90,18 +90,19 @@ def test_graft_entry_contract():
 
 
 def test_sp_fast_kernel_pipeline_in_mesh(engine):
-    """dp x sp with the FULL kernel pipeline (use_pallas=True, interpret on
-    CPU): the sharded segmentation runs fused-init/dist-sweep/run-stats
-    kernels shard-locally and must match the unsharded batched path."""
+    """dp x sp with the engine's default [yz, x, yz] schedule through
+    `run_sharded_batched`: the sharded segmentation (local y/z line passes,
+    cross-shard x scans, psum'd stats) must certify and match the unsharded
+    batched path."""
     from mamri_tpu.perception.segmentation import SegmentationParams
 
     eng = MamriEngine(
         ik_iters=10, ik_restarts=0,
-        seg_params=SegmentationParams(max_sweeps=2, passes=3, max_roots=128, use_pallas=True),
+        seg_params=SegmentationParams(max_sweeps=2, passes=3, max_roots=128),
     )
     vol = _scene(eng)
     data = vol.data
-    pad_x = (-data.shape[0]) % 32  # sp=4 shards x 8-row x tiles
+    pad_x = (-data.shape[0]) % 4  # sp=4 shards
     if pad_x:
         data = np.pad(data, ((0, pad_x), (0, 0), (0, 0)), constant_values=10.0)
     mesh = make_mesh(8, axes=("dp", "sp"))  # 2 x 4
@@ -130,11 +131,11 @@ def test_sharded_escalation_loop(engine):
 
     eng = MamriEngine(
         ik_iters=10, ik_restarts=0,
-        seg_params=SegmentationParams(passes=1, max_sweeps=1, max_roots=128, use_pallas=True),
+        seg_params=SegmentationParams(passes=1, max_sweeps=1, max_roots=128),
     )
     vol = _scene(eng)
     data = vol.data
-    pad_x = (-data.shape[0]) % 32
+    pad_x = (-data.shape[0]) % 4
     if pad_x:
         data = np.pad(data, ((0, pad_x), (0, 0), (0, 0)), constant_values=10.0)
     mesh = make_mesh(8, axes=("dp", "sp"))

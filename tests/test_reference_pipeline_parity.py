@@ -10,7 +10,7 @@ through TWO independent implementations of the reference's `process()` chain
            semantics golden) -> numpy combinatorial L-shape matcher ->
            numpy SVD Kabsch on the Y-flattened baseplate -> SciPy TRF IK
            (`ik/trf.py`, the reference's exact solver config)
-  engine:  `MamriEngine.estimate_pose` — the fused JAX program (Pallas/jnp
+  engine:  `MamriEngine.estimate_pose` — the fused JAX program (XLA
            segmentation + vectorized matcher + Horn Kabsch + vmapped LM)
 
 and the final outputs (joint angles, steps, baseplate transform, TCP) must

@@ -185,27 +185,27 @@ def test_half_sweep_passes_schedule():
     lab0 = seg._init_labels(jnp.asarray(mask))
     reset = jnp.asarray(~mask)
 
-    full2, conv_full = seg._ccl_sweeps_jnp(lab0, reset, 2)
-    even4, conv_even = seg._ccl_sweeps_jnp(lab0, reset, 99, passes=4)
+    full2, conv_full = seg._ccl_sweeps(lab0, reset, 2)
+    even4, conv_even = seg._ccl_sweeps(lab0, reset, 99, passes=4)
     np.testing.assert_array_equal(np.asarray(full2), np.asarray(even4))
     assert bool(conv_full) and bool(conv_even)
 
-    odd3, conv_odd = seg._ccl_sweeps_jnp(lab0, reset, 99, passes=3)
+    odd3, conv_odd = seg._ccl_sweeps(lab0, reset, 99, passes=3)
     assert bool(conv_odd)
     np.testing.assert_array_equal(np.asarray(odd3), np.asarray(full2))
 
-    _, conv_yz = seg._ccl_sweeps_jnp(lab0, reset, 99, passes=1)
+    _, conv_yz = seg._ccl_sweeps(lab0, reset, 99, passes=1)
     assert not bool(conv_yz)  # x never scanned: certificate refuses
 
 
 def test_segment_volume_passes_default_certifies(vol, cpu_seg):
     """segment_volume with the engine's passes=3 default matches the scipy
-    oracle and certifies on the demo scene (jnp path)."""
+    oracle and certifies on the demo scene."""
     import jax.numpy as jnp
 
     from mamri_tpu.perception.segmentation import SegmentationParams, segment_volume
 
-    params = SegmentationParams(passes=3, max_sweeps=99, use_pallas=False)
+    params = SegmentationParams(passes=3, max_sweeps=99)
     res = segment_volume(
         jnp.asarray(vol.data), jnp.asarray(vol.spacing), jnp.asarray(vol.origin), params
     )
@@ -240,7 +240,7 @@ def test_blob_band_certificate():
     spacing = np.full(3, 1.5, np.float32)
     origin = np.zeros(3, np.float32)
 
-    params = SegmentationParams(max_sweeps=8, use_pallas=False)
+    params = SegmentationParams(max_sweeps=8)
     res = segment_volume(jnp.asarray(data), spacing, origin, params)
     assert int(res.num_components) == 40
     assert bool(res.roots_complete) and bool(res.ccl_converged)
@@ -259,21 +259,21 @@ def test_blob_band_certificate():
 
 
 def test_huge_threshold_padding_stays_background():
-    """Border padding must be STRICTLY out of band: `thr_lo - 1.0` is a f32
-    no-op for |thr_lo| >= 2^24, which classified every pad voxel as
-    foreground (review finding, reproduced before the -inf fill fix)."""
+    """Huge thresholds (|thr| >= 2^24, where `thr - 1.0` is an f32 no-op)
+    must leave an all-zero volume and its closing padding background, and
+    non-finite thresholds are rejected at the boundary."""
     import numpy as np
 
     from mamri_tpu.perception.segmentation import SegmentationParams, segment_volume
 
     data = np.zeros((16, 16, 16), np.float32)
     params = SegmentationParams(
-        intensity_low=2.0e7, intensity_high=3.0e7, use_pallas=True
+        intensity_low=2.0e7, intensity_high=3.0e7
     )
     res = segment_volume(data, np.ones(3, np.float32), np.zeros(3, np.float32), params)
     assert int(np.asarray(res.num_components)) == 0
     assert not bool(np.asarray(res.body_mask).any())
-    # non-finite thresholds are rejected at the boundary, not mis-padded
+    # non-finite thresholds are rejected at the boundary
     import pytest
 
     with pytest.raises(ValueError, match="finite"):
@@ -283,13 +283,12 @@ def test_huge_threshold_padding_stays_background():
         )
 
 
-def test_compact_stats_parity_and_targeted_escalation():
-    """Escalated-R stats over the top_k-compacted run table must match the
-    dense table bit-for-bit on every blob decision, and the sub-certificates
-    must drive TARGETED escalation: a speckle storm overflows the root count
-    and the per-block candidate budget but NOT the per-line run budget, so
-    run_k stays at its default (the run table — and with it the stats
-    traffic — must not double for nothing)."""
+def test_targeted_escalation_grows_only_max_roots():
+    """Targeted escalation on a speckle storm: the count sub-certificate
+    fails at the default root budget, so escalation grows `max_roots` ONLY
+    (the exact flat selection stays off — the blocked one is not what
+    overflowed), certifies within two steps, and its blob decisions equal
+    an exhaustive-selection run's bit for bit."""
     from mamri_tpu.api.engine import MamriEngine
 
     rng = np.random.default_rng(9)
@@ -316,14 +315,12 @@ def test_compact_stats_parity_and_targeted_escalation():
             jnp.asarray(data), jnp.asarray(v.spacing), jnp.asarray(v.origin), params
         )
 
-    # defaults (kernel path forced; interpret mode on CPU)
-    params = SegmentationParams(max_sweeps=2, passes=3, max_roots=128, use_pallas=True)
+    params = SegmentationParams(max_sweeps=2, passes=3, max_roots=128)
     r0 = run(params)
     assert not bool(r0.count_ok)  # > 128 components
     assert not bool(r0.roots_complete)
-    assert bool(r0.runs_ok), "speckle must not overflow the per-line run budget"
+    assert bool(r0.ccl_converged)
 
-    # targeted escalation: run_k must NOT move
     chain = [params]
     while True:
         r = run(chain[-1])
@@ -331,29 +328,63 @@ def test_compact_stats_parity_and_targeted_escalation():
             break
         stronger = MamriEngine._escalate_seg_params(
             chain[-1], bool(r.ccl_converged), bool(r.roots_complete), bool(r.blobs_complete),
-            count_ok=bool(r.count_ok), cand_ok=bool(r.cand_ok),
-            runs_ok=bool(r.runs_ok), compact_ok=bool(r.compact_ok),
+            count_ok=bool(r.count_ok),
         )
         assert stronger is not None, "escalation exhausted while uncertified"
         chain.append(stronger)
     landed = chain[-1]
     assert landed.max_roots > 128
-    assert landed.run_k == params.run_k, (landed.run_k, "blanket escalation leaked in")
+    assert not landed.exhaustive_roots, "blanket escalation leaked in"
+    assert landed.passes == params.passes
     assert len(chain) <= 3
 
-    # compact (auto at max_roots > 256) vs dense: identical blob decisions
-    r_compact = run(landed)
-    r_dense = run(landed._replace(compact_stats=False))
-    assert bool(r_compact.compact_ok)
-    np.testing.assert_array_equal(np.asarray(r_compact.centroids_ras), np.asarray(r_dense.centroids_ras))
-    np.testing.assert_array_equal(np.asarray(r_compact.volumes_mm3), np.asarray(r_dense.volumes_mm3))
-    np.testing.assert_array_equal(np.asarray(r_compact.blob_valid), np.asarray(r_dense.blob_valid))
-    assert int(r_compact.num_blobs) == int(r_dense.num_blobs) == 3
-    assert int(r_compact.num_components) == int(r_dense.num_components) > 200
-    assert bool(r_compact.body_found) and bool(r_dense.body_found)
+    r_landed = run(landed)
+    r_exact = run(landed._replace(exhaustive_roots=True))
+    np.testing.assert_array_equal(np.asarray(r_landed.centroids_ras), np.asarray(r_exact.centroids_ras))
+    np.testing.assert_array_equal(np.asarray(r_landed.volumes_mm3), np.asarray(r_exact.volumes_mm3))
+    np.testing.assert_array_equal(np.asarray(r_landed.blob_valid), np.asarray(r_exact.blob_valid))
+    assert int(r_landed.num_blobs) == int(r_exact.num_blobs) == 3
+    assert int(r_landed.num_components) == int(r_exact.num_components) > 200
+    assert bool(r_landed.body_found) and bool(r_exact.body_found)
+    assert bool(r_landed.roots_complete) and bool(r_landed.count_ok)
 
-    # compact-cap overflow certificate: a cap smaller than the real run count
-    # is impossible to construct through params (cap is shape-derived), so
-    # drive the primitive directly: compact on, every certificate must still
-    # gate exactness claims
-    assert bool(r_compact.roots_complete)
+
+@pytest.mark.parametrize("shape", [(13, 7, 11), (30, 17, 9), (21, 34, 5), (9, 9, 40)])
+def test_component_stats_match_scipy(shape):
+    """The chunked one-hot stats reduction (counts and index sums per root)
+    against scipy.ndimage on random masks at non-power-of-two shapes."""
+    from scipy import ndimage
+
+    from mamri_tpu.perception import segmentation as seg
+
+    rng = np.random.default_rng(sum(shape))
+    mask = rng.random(shape) < 0.35
+    labels = seg.connected_components(jnp.asarray(mask), max_sweeps=32)
+    roots, valid, counts, sums, num, count_ok, complete = seg._component_stats(
+        labels, max_roots=512
+    )
+    ref, n = ndimage.label(mask, structure=ndimage.generate_binary_structure(3, 1))
+    assert int(num) == n and bool(count_ok) and bool(complete)
+
+    # scipy's labels, keyed by each component's first voxel in (z, y, x)
+    # raster order — the root the JAX labels carry
+    nx, ny, _ = shape
+    gi, gj, gk = np.meshgrid(*(np.arange(s) for s in shape), indexing="ij")
+    raster = gk * (nx * ny) + gj * nx + gi
+    idx = np.arange(1, n + 1)
+    first = ndimage.minimum(raster, ref, idx).astype(np.int64)
+    want = {
+        int(r): (c, si, sj, sk)
+        for r, c, si, sj, sk in zip(
+            first,
+            ndimage.sum(np.ones(shape), ref, idx),
+            ndimage.sum(gi, ref, idx),
+            ndimage.sum(gj, ref, idx),
+            ndimage.sum(gk, ref, idx),
+        )
+    }
+    got_roots = np.asarray(roots)[np.asarray(valid)]
+    assert sorted(got_roots.tolist()) == sorted(want)
+    got = np.concatenate([np.asarray(counts)[:, None], np.asarray(sums)], axis=1)
+    for r, row in zip(got_roots, got[np.asarray(valid)]):
+        np.testing.assert_array_equal(row, want[int(r)])

@@ -25,14 +25,11 @@ def _mesh(n=8, axis="sp"):
     return Mesh(np.asarray(jax.devices()[:n]), (axis,))
 
 
-def _run_sharded(vol, params, n_shards=8, interpret=None, force_general=False):
+def _run_sharded(vol, params, n_shards=8):
     mesh = _mesh(n_shards)
 
     def fn(data, spacing, origin):
-        return segment_volume_sharded(
-            data, spacing, origin, params, axis_name="sp",
-            interpret=interpret, force_general=force_general,
-        )
+        return segment_volume_sharded(data, spacing, origin, params, axis_name="sp")
 
     shmapped = jax.shard_map(
         fn,
@@ -52,9 +49,6 @@ def _run_sharded(vol, params, n_shards=8, interpret=None, force_general=False):
             roots_complete=P(),
             blobs_complete=P(),
             count_ok=P(),
-            cand_ok=P(),
-            runs_ok=P(),
-            compact_ok=P(),
         ),
         check_vma=False,
     )
@@ -101,21 +95,19 @@ def scene_vol():
 
 
 def test_sharded_matches_single_device(scene_vol):
-    params = SegmentationParams(max_sweeps=8, use_pallas=False)
+    params = SegmentationParams(max_sweeps=8)
     ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
     got = _run_sharded(scene_vol, params)
     _assert_parity(got, ref)
 
 
 def test_sharded_pallas_kernel_in_shard_map(scene_vol):
-    """The Pallas line-scan kernel itself (interpret mode on CPU) inside
-    shard_map, local y/z scans + exact cross-shard x scan."""
-    params = SegmentationParams(max_sweeps=6, use_pallas=True)
-    ref = segment_volume(
-        scene_vol.data, scene_vol.spacing, scene_vol.origin,
-        params._replace(use_pallas=False),
-    )
-    got = _run_sharded(scene_vol, params, interpret=True)
+    """The classic full-sweep schedule (max_sweeps=6, y/z line passes
+    shard-local, x passes across shards) inside shard_map, bit-exact with
+    the single-device path."""
+    params = SegmentationParams(max_sweeps=6)
+    ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
+    got = _run_sharded(scene_vol, params)
     _assert_parity(got, ref)
 
 
@@ -123,7 +115,7 @@ def test_sharded_int16_input_bit_identical(scene_vol):
     """Scanner-native int16 shards segment bit-identically: the cast to f32
     happens shard-locally on device (segment_volume_sharded), so compact
     frames ride the same halved-H2D path as the single-chip pipeline."""
-    params = SegmentationParams(max_sweeps=8, use_pallas=False)
+    params = SegmentationParams(max_sweeps=8)
     ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
     assert np.array_equal(scene_vol.data, scene_vol.data.astype(np.int16))
     vol16 = type(scene_vol)(
@@ -142,7 +134,7 @@ def test_component_spanning_all_shards():
     data[10:12, 12:14, 100:102] = 100.0  # a small separate blob
     vol_spacing = np.array([1.0, 2.0, 1.5], np.float32)
     origin = np.zeros(3, np.float32)
-    params = SegmentationParams(max_sweeps=8, use_pallas=False, min_volume_mm3=2.0, max_volume_mm3=50.0)
+    params = SegmentationParams(max_sweeps=8, min_volume_mm3=2.0, max_volume_mm3=50.0)
     ref = segment_volume(data, vol_spacing, origin, params)
 
     class V:
@@ -169,7 +161,7 @@ def test_closing_halo_exactness():
     data[33:35, 8:11, 10:13] = 100.0  # 1-voxel gap at x=32 (boundary 4|5)
     spacing = np.ones(3, np.float32)
     origin = np.zeros(3, np.float32)
-    params = SegmentationParams(max_sweeps=8, use_pallas=False, min_volume_mm3=1.0, max_volume_mm3=1e5)
+    params = SegmentationParams(max_sweeps=8, min_volume_mm3=1.0, max_volume_mm3=1e5)
     ref = segment_volume(data, spacing, origin, params)
 
     class V:
@@ -183,27 +175,26 @@ def test_closing_halo_exactness():
 
 
 def test_sharded_fast_kernel_pipeline_parity(scene_vol):
-    """The FULL single-chip kernel pipeline on the sp axis (fused init with
-    data halo, dist-masked half-sweeps, cross-shard x fix, d=1 certificate,
-    run-stats on the MXU): bit-exact labels vs segment_volume(use_pallas=True)
-    on the [yz, x, yz, x, yz] half-sweep schedule (this random scene needs 5
-    half-sweeps to certify; at 3 both paths identically report False)."""
-    params = SegmentationParams(max_sweeps=2, passes=5, use_pallas=True)
+    """The half-sweep schedule on the sp axis (mask halo, local y/z passes,
+    cross-shard x scans, global certificate, psum'd stats): bit-exact vs
+    segment_volume on the [yz, x, yz, x, yz] schedule (this random scene
+    needs 5 half-sweeps to certify)."""
+    params = SegmentationParams(max_sweeps=2, passes=5)
     ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
-    got = _run_sharded(scene_vol, params, interpret=True)
+    got = _run_sharded(scene_vol, params)
     _assert_parity(got, ref)
 
 
 def test_sharded_fast_component_spanning_all_shards():
-    """A bar along the full x extent through the kernel pipeline: the
-    boundary-run prefix fix must merge it into ONE component, bit-exactly."""
+    """A bar along the full x extent on the [yz, x, yz] schedule: the
+    cross-shard prefix must merge it into ONE component, bit-exactly."""
     data = np.zeros((64, 16, 136), np.float32)
     data[:, 6:9, 6:9] = 100.0  # full-length bar
     data[10:12, 12:14, 100:102] = 100.0  # a small separate blob
     spacing = np.array([1.0, 2.0, 1.5], np.float32)
     origin = np.zeros(3, np.float32)
     params = SegmentationParams(
-        passes=3, max_sweeps=2, use_pallas=True, min_volume_mm3=2.0, max_volume_mm3=50.0
+        passes=3, max_sweeps=2, min_volume_mm3=2.0, max_volume_mm3=50.0
     )
     ref = segment_volume(data, spacing, origin, params)
 
@@ -212,7 +203,7 @@ def test_sharded_fast_component_spanning_all_shards():
 
     v = V()
     v.data, v.spacing, v.origin = data, spacing, origin
-    got = _run_sharded(v, params, interpret=True)
+    got = _run_sharded(v, params)
     _assert_parity(got, ref)
     assert int(got.num_components) == 2
     assert bool(got.body_found)
@@ -239,14 +230,12 @@ def test_sharded_fast_passes_escalation_certifies():
     v = V()
     v.data, v.spacing, v.origin = data, spacing, origin
 
-    starved = SegmentationParams(
-        passes=1, max_sweeps=1, use_pallas=True, max_roots=2048, cand_k=64, run_k=64,
-    )
-    got1 = _run_sharded(v, starved, interpret=True)
+    starved = SegmentationParams(passes=1, max_sweeps=1, max_roots=2048)
+    got1 = _run_sharded(v, starved)
     assert not bool(got1.ccl_converged)
 
     for p in (2, 4, 8, 16, 32):
-        got = _run_sharded(v, starved._replace(passes=p), interpret=True)
+        got = _run_sharded(v, starved._replace(passes=p))
         if bool(got.ccl_converged):
             break
     assert bool(got.ccl_converged), "escalated passes never certified"
@@ -260,37 +249,29 @@ def test_sharded_fast_passes_escalation_certifies():
 
 @pytest.mark.parametrize("n_shards", [2, 4])
 def test_sharded_fast_pipeline_other_shard_counts(scene_vol, n_shards):
-    """Shard-count robustness: the fast kernel pipeline's halo exchange,
-    x-prefix fix and certificate collectives must be exact for any mesh
-    size, not just the 8-way mesh the other tests pin (nx=64 keeps the
-    per-shard nx a multiple of 8 at 2/4 shards)."""
-    params = SegmentationParams(max_sweeps=2, passes=5, use_pallas=True)
+    """Shard-count robustness: the halo exchange, x-prefix fix and
+    certificate collectives must be exact for any mesh size, not just the
+    8-way mesh the other tests pin."""
+    params = SegmentationParams(max_sweeps=2, passes=5)
     ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
-    got = _run_sharded(scene_vol, params, n_shards=n_shards, interpret=True)
+    got = _run_sharded(scene_vol, params, n_shards=n_shards)
     _assert_parity(got, ref)
 
 
 def test_sp1_degenerates_to_single_chip(scene_vol):
     """dp-only meshes (sp=1): the sharded entry point detects the static
-    axis size and routes to the single-chip pipeline (skipping the halo
-    concat / boundary masks / x-prefix fix). Both
-    the degenerate route and the general formulation kept alive by
-    `force_general` (the profiling/parity harness route) must stay
-    bit-identical to `segment_volume` (passes=5: this scene certifies at 5
-    half-sweeps, like the other fast-path parity tests)."""
-    params = SegmentationParams(max_sweeps=2, passes=5, use_pallas=True)
+    axis size and routes to the single-device pipeline (skipping the halo
+    concat and x-prefix fix), bit-identical to `segment_volume` (passes=5:
+    this scene certifies at 5 half-sweeps, like the other parity tests)."""
+    params = SegmentationParams(max_sweeps=2, passes=5)
     ref = segment_volume(scene_vol.data, scene_vol.spacing, scene_vol.origin, params)
-    got = _run_sharded(scene_vol, params, n_shards=1, interpret=True)
+    got = _run_sharded(scene_vol, params, n_shards=1)
     _assert_parity(got, ref)
-    got_gen = _run_sharded(
-        scene_vol, params, n_shards=1, interpret=True, force_general=True
-    )
-    _assert_parity(got_gen, ref)
 
 
 def test_thin_shards_rejected_loudly(scene_vol):
     """A shard thinner than the closing halo would receive its neighbor's
-    planes from the halo slice; both sharded paths must refuse instead."""
+    planes from the halo slice; the sharded path must refuse instead."""
     from mamri_tpu.perception.volume import Volume
 
     vol = scene_vol
@@ -299,6 +280,5 @@ def test_thin_shards_rejected_loudly(scene_vol):
         spacing=vol.spacing,
         origin=vol.origin,
     )
-    for use_pallas in (False, True):
-        with pytest.raises(ValueError, match="thinner|halo"):
-            _run_sharded(thin, SegmentationParams(use_pallas=use_pallas), interpret=True)
+    with pytest.raises(ValueError, match="thinner|halo"):
+        _run_sharded(thin, SegmentationParams())

@@ -1,4 +1,4 @@
-"""Host-side scanner-ingest codec throughput (no TPU required).
+"""Host-side scanner-ingest codec throughput (no accelerator required).
 
 Times every DICOM transfer syntax's encode + decode on synthetic MR-like
 slices, native C++ path vs the pure-Python oracle. Prints one JSON object;
